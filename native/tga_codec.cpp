@@ -1,7 +1,7 @@
 // Native host-side codecs for tinyrenderder_tpu.
 //
-// The reference implements its whole runtime in C++; in the TPU-native
-// framework the device compute path is XLA/Pallas, and these are the
+// The reference implements its whole runtime in C++; in this framework
+// the device compute path is XLA/Pallas, and these are the
 // host-side hot loops kept native: the TGA RLE codec (semantics of the
 // reference tgaimage.cpp:124-157 decode and tgaimage.cpp:193-242 greedy
 // encode, byte-identical output) exposed with a C ABI for ctypes.

@@ -4,7 +4,7 @@ Goldens are rendered by the deterministic XLA CPU engine path: they pin
 the engine's exact output across refactors/rounds (live oracle-parity
 tests separately pin engine-vs-oracle at each run).  Run only after an
 INTENTIONAL semantics change, never to paper over a diff:
-    JAX_PLATFORM_NAME=cpu python scripts/gen_goldens.py
+    JAX_PLATFORMS=cpu python scripts/gen_goldens.py
 """
 import os
 import sys
@@ -16,9 +16,10 @@ sys.path.insert(0, os.path.join(
 # identical backend + rounding environment to tests/conftest.py — a
 # different XLA flag set compiles differently-rounded programs and the
 # goldens would differ at z-tie edge pixels
-os.environ.setdefault("JAX_PLATFORM_NAME", "cpu")
+os.environ.setdefault("JAX_PLATFORMS", "cpu")
 _flags = os.environ.get("XLA_FLAGS", "")
 for _f in ("--xla_force_host_platform_device_count=8",
+           "--xla_cpu_max_isa=AVX",
            "--xla_allow_excess_precision=false"):
     if _f.split("=")[0] not in _flags:
         _flags = (_flags + " " + _f).strip()

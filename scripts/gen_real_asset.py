@@ -9,7 +9,7 @@ OBJ + MTL + three TGA maps (diffuse / object-space normal / specular),
 and (with --golden) pins the CLI render of that asset as a golden TGA.
 
 Usage:
-    JAX_PLATFORM_NAME=cpu python scripts/gen_real_asset.py <outdir> [--golden]
+    JAX_PLATFORMS=cpu python scripts/gen_real_asset.py <outdir> [--golden]
 """
 
 import os
@@ -17,9 +17,10 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-os.environ.setdefault("JAX_PLATFORM_NAME", "cpu")
+os.environ.setdefault("JAX_PLATFORMS", "cpu")
 _flags = os.environ.get("XLA_FLAGS", "")
 for _f in ("--xla_force_host_platform_device_count=8",
+           "--xla_cpu_max_isa=AVX",
            "--xla_allow_excess_precision=false"):
     if _f.split("=")[0] not in _flags:
         _flags = (_flags + " " + _f).strip()

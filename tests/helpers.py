@@ -49,8 +49,9 @@ def render_engine(passes, w, h, backend="xla"):
 def assert_parity(frame: "oracle.OracleFrame", fb, max_color_lsb=1,
                   depth_ulps=8, require_same_winners=True):
     """The engine-vs-oracle contract: identical coverage, winner map within
-    the depth tolerance, depth within `depth_ulps` ulps (XLA CPU contracts
-    mul+add to FMA; TPU matches bitwise), color within `max_color_lsb`."""
+    the depth tolerance, depth within `depth_ulps` ulps (ill-conditioned
+    triangles amplify evaluation-order differences; real scenes match
+    bitwise), color within `max_color_lsb`."""
     color = np.asarray(fb.color)
     depth = np.asarray(fb.depth).astype(np.float32)
     oz = frame.zbuffer.astype(np.float32)

@@ -1,41 +1,18 @@
-"""Unit tests for the bench harness helpers (round-4 verdict #2/#7
-machinery: dispersion records, noise-banded cross-round comparison) and
-the measured-band row map."""
+"""Unit tests for the bench harness helpers (per-config dispersion
+records) and the measured-band row map."""
 
 import numpy as np
 
 
 def test_timing_fields_samples_and_mad():
     import bench
-    rec = bench._timing_fields(0.010, 1.0, 0.001,
+    rec = bench._timing_fields(0.010, 1.0,
                                samples=[0.011, 0.010, 0.013])
     assert rec["samples_frame_ms"] == [10.0, 11.0, 13.0]
     assert rec["mad_frame_ms"] == 1.0          # median |s - 11| = 1
     assert rec["frame_ms"] == 10.0
-    rec2 = bench._timing_fields(0.010, 1.0, 0.001)
+    rec2 = bench._timing_fields(0.010, 1.0)
     assert "samples_frame_ms" not in rec2
-
-
-def test_vs_r03_significance_banding():
-    import bench
-    # phong_2048 r03 = 288.3; +30% with tiny dispersion -> significant
-    rec = {"mpix_s": 288.3 * 1.3, "frame_ms": 11.0, "mad_frame_ms": 0.05}
-    bench._vs_r03("phong_2048", rec)
-    assert rec["vs_r03"]["significant"] is True
-    assert rec["vs_r03"]["delta_pct"] == 30.0
-    # +5% is inside the 8% floor -> noise
-    rec = {"mpix_s": 288.3 * 1.05, "frame_ms": 14.0, "mad_frame_ms": 0.1}
-    bench._vs_r03("phong_2048", rec)
-    assert rec["vs_r03"]["significant"] is False
-    # wide dispersion (3*MAD/frame > |delta|) masks a 20% delta
-    rec = {"mpix_s": 288.3 * 1.2, "frame_ms": 12.0, "mad_frame_ms": 1.0}
-    bench._vs_r03("phong_2048", rec)
-    assert rec["vs_r03"]["noise_band_pct"] == 25.0
-    assert rec["vs_r03"]["significant"] is False
-    # unknown config: untouched
-    rec = {"mpix_s": 100.0, "frame_ms": 1.0}
-    bench._vs_r03("nonesuch", rec)
-    assert "vs_r03" not in rec
 
 
 def test_band_row_map_roundtrip():

@@ -6,6 +6,7 @@ UV flip parity with OBJ, manager dispatch."""
 import base64
 import json
 import struct
+import sys
 
 import numpy as np
 import pytest
@@ -354,6 +355,27 @@ def test_gltf_default_material_not_materials0(tmp_path):
     sm = m.submeshes[0]
     assert m.materials[sm.material_index].name == "__gltf_default__"
     assert not m.materials[sm.material_index].has_diffuse
+
+
+def test_gltf_embedded_texture_without_pillow(tmp_path, monkeypatch):
+    """Pillow is optional: without it an embedded PNG texture raises an
+    ImportError that names the missing package."""
+    png = b"\x89PNG\r\n\x1a\n" + b"\x00" * 8
+    bin_data = _quad_bin() + png
+    j = _quad_json({"byteLength": len(bin_data)})
+    j["bufferViews"].append({"buffer": 0,
+                             "byteOffset": len(bin_data) - len(png),
+                             "byteLength": len(png)})
+    j["images"] = [{"bufferView": 3, "mimeType": "image/png"}]
+    j["textures"] = [{"source": 0}]
+    j["materials"] = [{"name": "tex", "pbrMetallicRoughness":
+                       {"baseColorTexture": {"index": 0}}}]
+    j["meshes"][0]["primitives"][0]["material"] = 0
+    p = tmp_path / "np.glb"
+    _write_glb(p, j, bin_data)
+    monkeypatch.setitem(sys.modules, "PIL", None)
+    with pytest.raises(ImportError, match="Pillow"):
+        load_gltf(str(p))
 
 
 def test_gltf_truncated_raises(tmp_path):

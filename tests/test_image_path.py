@@ -4,15 +4,15 @@
 The image path skips the depth/winner tile materialization and the
 3-plane untile of the general fused frame; its colors must stay
 BITWISE identical to tiles_to_buffers(render_frame_fused(...)).color
-for every kernel mode and both placement variants (the cross-backend
-exactness invariant)."""
+at both tile heights and for both placement variants (the
+cross-backend exactness invariant)."""
 
 import numpy as np
 import pytest
 
 from helpers import default_view, make_pass, standard_meshes
 from tinyrenderder_tpu import math3d
-from tinyrenderder_tpu.ops import raster_fine, raster_fine2, raster_sparse
+from tinyrenderder_tpu.ops import raster_sparse
 from tinyrenderder_tpu.shaders import GouraudShader, PhongShader
 
 KEY = math3d.normalized(math3d.vec3(1.0, 1.4, 1.0))
@@ -29,11 +29,6 @@ def _clear_caches():
     raster_sparse._SPARSE_CAPACITY.clear()
     raster_sparse._SPARSE_PENDING.clear()
     raster_sparse._W_REFINED.clear()
-    raster_fine._FINE_CAPACITY.clear()
-    raster_fine._FINE_PENDING.clear()
-    raster_fine._W_REFINED.clear()
-    raster_fine2._FINE2_CAPACITY.clear()
-    raster_fine2._FINE2_PENDING.clear()
 
 
 def _one_pass(meshes, name="head", shader=None):
@@ -45,29 +40,29 @@ def _one_pass(meshes, name="head", shader=None):
     return [(attrs, p.shader, dict(p.uniforms), False)]
 
 
-def _reference_color(passes, w, h):
+def _reference_color(passes, w, h, tile_h=16):
     ft, _, ovf = raster_sparse.render_frame_fused(passes, w, h,
+                                                  tile_h=tile_h,
                                                   strict_capacity=True)
     assert not bool(ovf)
-    return np.asarray(raster_sparse.tiles_to_buffers(ft, w, h).color)
+    return np.asarray(raster_sparse.tiles_to_buffers(
+        ft, w, h, tile_h=tile_h).color)
 
 
-@pytest.mark.parametrize("mode", ["coarse", "fine", "fine2"])
+@pytest.mark.parametrize("tile_h", [16, 32])
 @pytest.mark.parametrize("direct", [True, False])
-def test_image_matches_fused_per_mode(meshes, mode, direct):
+def test_image_matches_fused_per_mode(meshes, tile_h, direct):
     w, h = 256, 128
-    old = raster_sparse.FINE_MODE
-    raster_sparse.FINE_MODE = mode
     try:
         _clear_caches()
         passes = _one_pass(meshes)
-        ref = _reference_color(passes, w, h)
+        ref = _reference_color(passes, w, h, tile_h)
         img, ovf = raster_sparse.render_frame_fused_image(
-            passes, w, h, strict_capacity=True, direct=direct)
+            passes, w, h, tile_h=tile_h, strict_capacity=True,
+            direct=direct)
         assert not bool(ovf)
         np.testing.assert_array_equal(np.asarray(img), ref)
     finally:
-        raster_sparse.FINE_MODE = old
         _clear_caches()
 
 
@@ -75,8 +70,6 @@ def test_image_ragged_frame(meshes):
     """Non-tile-aligned width/height: the padded placement must crop to
     exactly the general path's image."""
     w, h = 160, 42
-    old = raster_sparse.FINE_MODE
-    raster_sparse.FINE_MODE = "fine"
     try:
         _clear_caches()
         passes = _one_pass(meshes, "soup", GouraudShader())
@@ -86,7 +79,6 @@ def test_image_ragged_frame(meshes):
                 passes, w, h, strict_capacity=True, direct=direct)
             np.testing.assert_array_equal(np.asarray(img), ref)
     finally:
-        raster_sparse.FINE_MODE = old
         _clear_caches()
 
 
@@ -95,8 +87,6 @@ def test_image_async_capacity_and_growth(meshes):
     seeded caps must overflow, flag the frame, then grow via the pending
     resolve so a later frame is exact."""
     w, h = 256, 128
-    old = raster_sparse.FINE_MODE
-    raster_sparse.FINE_MODE = "coarse"
     try:
         _clear_caches()
         passes = _one_pass(meshes)
@@ -119,7 +109,6 @@ def test_image_async_capacity_and_growth(meshes):
         assert not bool(np.asarray(ovf))
         np.testing.assert_array_equal(np.asarray(img), ref)
     finally:
-        raster_sparse.FINE_MODE = old
         _clear_caches()
 
 
@@ -127,8 +116,6 @@ def test_image_strict_growth_loop(meshes):
     """Strict mode with undersized seeded caps must grow and re-render
     within the call, returning the exact image."""
     w, h = 256, 128
-    old = raster_sparse.FINE_MODE
-    raster_sparse.FINE_MODE = "fine"
     try:
         _clear_caches()
         passes = _one_pass(meshes)
@@ -136,13 +123,12 @@ def test_image_strict_growth_loop(meshes):
         f = passes[0][0]["position"].shape[0]
         key = (f, 2, 8, 16, 128)
         _clear_caches()
-        raster_fine._FINE_CAPACITY[key] = (8, 8, 8, 8)
+        raster_sparse._SPARSE_CAPACITY[key] = (8, 8, 8)
         img, ovf = raster_sparse.render_frame_fused_image(
             passes, w, h, strict_capacity=True)
         assert not bool(np.asarray(ovf))
         np.testing.assert_array_equal(np.asarray(img), ref)
     finally:
-        raster_sparse.FINE_MODE = old
         _clear_caches()
 
 

@@ -249,9 +249,8 @@ def test_sharded_eye_pass_depth_snapshot(meshes):
     assert np.array_equal(np.asarray(b.depth), np.asarray(b_noeyes.depth)), \
         "sharded output depth must be the pre-eyes snapshot"
 
-    # cross-backend: identical coverage on both depths, depth within ulps
-    # (CPU-only FMA-grouping gap between the scan path and the Pallas
-    # interpret kernel; bitwise on TPU), color <= 1 LSB
+    # cross-backend: identical coverage on both depths, depth within
+    # ulps, color <= 1 LSB
     for d_sh, d_x in ((b.depth, a.depth), (b.full_depth, a.full_depth)):
         d_sh, d_x = np.asarray(d_sh), np.asarray(d_x)
         assert (np.isfinite(d_sh) == np.isfinite(d_x)).all()
@@ -375,9 +374,8 @@ def test_scene_backend_sharded_geometry(meshes):
 
 
 # ---------------------------------------------------------------------------
-# PRODUCTION sharded path: the fused sparse/fine frame under shard_map
-# (round-3 verdict item #1 — the fast path and the scaled path are the
-# same path)
+# PRODUCTION sharded path: the fused sparse frame under shard_map
+# (the fast path and the scaled path are the same path)
 # ---------------------------------------------------------------------------
 
 def _fused_passes(meshes, view, proj):
@@ -392,33 +390,28 @@ def _fused_passes(meshes, view, proj):
             for i, p in enumerate(ps)]
 
 
-@pytest.mark.parametrize("n_devices,kernel", [
-    (8, "coarse"), (8, "fine"), (8, "fine2"), (2, "coarse")])
-def test_fused_sharded_bitwise_vs_single(meshes, n_devices, kernel):
-    """render_frame_fused_sharded (the production sparse/fine pipeline
-    over row bands) is BITWISE identical to the single-device fused
-    frame — color, depth, winner, and excluded-pass output depth —
-    for both the coarse and the fine kernel."""
+@pytest.mark.parametrize("n_devices,tile_h", [
+    (8, 16), (8, 32), (2, 16), (2, 32)])
+def test_fused_sharded_bitwise_vs_single(meshes, n_devices, tile_h):
+    """render_frame_fused_sharded (the production sparse pipeline over
+    row bands) is BITWISE identical to the single-device fused frame —
+    color, depth, winner, and excluded-pass output depth — at both tile
+    heights (32-row tiles are the production tiling at >= 2 MPx)."""
     if len(jax.devices()) < n_devices:
         pytest.skip("not enough virtual devices")
     from tinyrenderder_tpu.ops import raster_sparse
 
-    w, h = 128, 16 * 8              # 1 tile row/band at n=8, 4 at n=2
+    w, h = 128, tile_h * 8          # 1 tile row/band at n=8, 4 at n=2
     view, proj = default_view()
     passes = _fused_passes(meshes, view, proj)
-    saved = raster_sparse.FINE_MODE
-    raster_sparse.FINE_MODE = kernel
-    raster_sparse._FINE_DECISION.clear()
-    try:
-        ft1, od1, _ = raster_sparse.render_frame_fused(passes, w, h)
-        fb1 = raster_sparse.tiles_to_buffers(ft1, w, h)
-        mesh = dist.make_mesh(n_devices)
-        ft2, od2, _ = dist.render_frame_fused_sharded(mesh, passes, w, h)
-        fb2 = dist.tiles_to_buffers_sharded(mesh, ft2, w, h)
-        od2_hw = dist.untile_one_sharded(mesh, od2, w, h)
-    finally:
-        raster_sparse.FINE_MODE = saved
-        raster_sparse._FINE_DECISION.clear()
+    ft1, od1, _ = raster_sparse.render_frame_fused(passes, w, h,
+                                                   tile_h=tile_h)
+    fb1 = raster_sparse.tiles_to_buffers(ft1, w, h, tile_h=tile_h)
+    mesh = dist.make_mesh(n_devices)
+    ft2, od2, _ = dist.render_frame_fused_sharded(mesh, passes, w, h,
+                                                  tile_h=tile_h)
+    fb2 = dist.tiles_to_buffers_sharded(mesh, ft2, w, h, tile_h=tile_h)
+    od2_hw = dist.untile_one_sharded(mesh, od2, w, h, tile_h=tile_h)
 
     assert (np.asarray(fb1.winner) == np.asarray(fb2.winner)).all()
     assert np.array_equal(np.asarray(fb1.depth), np.asarray(fb2.depth),
@@ -432,52 +425,46 @@ def test_fused_sharded_bitwise_vs_single(meshes, n_devices, kernel):
     assert len(shards) == n_devices
 
 
-@pytest.mark.parametrize("n_devices,kernel", [
-    (8, "coarse"), (8, "fine"), (8, "fine2"), (2, "fine")])
-def test_fused_sharded_interleaved_bitwise(meshes, n_devices, kernel):
+@pytest.mark.parametrize("n_devices,tile_h", [
+    (8, 16), (8, 32), (2, 16), (2, 32)])
+def test_fused_sharded_interleaved_bitwise(meshes, n_devices, tile_h):
     """Interleaved row bands (device b owns tile rows b, b+N, ...) are
     BITWISE identical to the single-device fused frame after the
     transfer-boundary row reorder — color, depth, winner, and the
-    excluded-pass output depth — for all three kernels.  Interleaving
-    splits contiguous coverage hot spots evenly across devices (the
-    round-3 band-imbalance fix, docs/PERFORMANCE.md)."""
+    excluded-pass output depth — at both tile heights.  Interleaving
+    splits contiguous coverage hot spots evenly across devices."""
     if len(jax.devices()) < n_devices:
         pytest.skip("not enough virtual devices")
     from tinyrenderder_tpu.ops import raster_sparse
 
-    w, h = 128, 16 * 8
+    w, h = 128, tile_h * 8
     view, proj = default_view()
     passes = _fused_passes(meshes, view, proj)
-    saved = raster_sparse.FINE_MODE
-    raster_sparse.FINE_MODE = kernel
-    raster_sparse._FINE_DECISION.clear()
-    try:
-        ft1, od1, _ = raster_sparse.render_frame_fused(passes, w, h)
-        fb1 = raster_sparse.tiles_to_buffers(ft1, w, h)
-        mesh = dist.make_mesh(n_devices)
-        ft2, od2, _ = dist.render_frame_fused_sharded(
-            mesh, passes, w, h, interleave=True)
-        fb2 = dist.tiles_to_buffers_sharded(mesh, ft2, w, h,
-                                            interleave=True)
-        od2_hw = dist.untile_one_sharded(mesh, od2, w, h, interleave=True)
-    finally:
-        raster_sparse.FINE_MODE = saved
-        raster_sparse._FINE_DECISION.clear()
+    ft1, od1, _ = raster_sparse.render_frame_fused(passes, w, h,
+                                                   tile_h=tile_h)
+    fb1 = raster_sparse.tiles_to_buffers(ft1, w, h, tile_h=tile_h)
+    mesh = dist.make_mesh(n_devices)
+    ft2, od2, _ = dist.render_frame_fused_sharded(
+        mesh, passes, w, h, tile_h=tile_h, interleave=True)
+    fb2 = dist.tiles_to_buffers_sharded(mesh, ft2, w, h, tile_h=tile_h,
+                                        interleave=True)
+    od2_hw = dist.untile_one_sharded(mesh, od2, w, h, tile_h=tile_h,
+                                     interleave=True)
 
     assert (np.asarray(fb1.winner) == np.asarray(fb2.winner)).all()
     assert np.array_equal(np.asarray(fb1.depth), np.asarray(fb2.depth),
                           equal_nan=True)
     assert (np.asarray(fb1.color) == np.asarray(fb2.color)).all()
-    od1_img = np.asarray(raster_sparse._untile_one_jit(
-        od1, w // 128, h // 16, 16, 128, True))
+    od1_img = np.asarray(raster_sparse.untile_plane(od1, w, h,
+                                                    tile_h=tile_h))
     assert np.array_equal(od1_img, np.asarray(od2_hw), equal_nan=True)
     # really distributed: one band shard per device
     shards = {s.device for s in ft2.color.addressable_shards}
     assert len(shards) == n_devices
 
 
-@pytest.mark.parametrize("kernel", ["coarse", "fine", "fine2"])
-def test_fused_sharded_geom_shard_flag_bitwise(meshes, kernel):
+@pytest.mark.parametrize("tile_h", [16, 32])
+def test_fused_sharded_geom_shard_flag_bitwise(meshes, tile_h):
     """Geometry sharding of the vertex stage (geom_shard, the default)
     changes NOTHING in the output: each device transforms a contiguous
     F/N slice and the all_gather restores exact submission order, with
@@ -487,9 +474,8 @@ def test_fused_sharded_geom_shard_flag_bitwise(meshes, kernel):
     fallback), so both edge paths run."""
     if len(jax.devices()) < 8:
         pytest.skip("not enough virtual devices")
-    from tinyrenderder_tpu.ops import raster_sparse
 
-    w, h = 128, 16 * 8
+    w, h = 128, tile_h * 8
     view, proj = default_view()
     passes = _fused_passes(meshes, view, proj)
     # drop one head triangle so F % 8 != 0 (the zero-padding path)
@@ -497,20 +483,13 @@ def test_fused_sharded_geom_shard_flag_bitwise(meshes, kernel):
     passes[0] = (head_attrs, *passes[0][1:])
     assert passes[0][0]["position"].shape[0] % 8 != 0  # padding engaged
     assert passes[1][0]["position"].shape[0] < 8       # f < n fallback
-    saved = raster_sparse.FINE_MODE
-    raster_sparse.FINE_MODE = kernel
-    raster_sparse._FINE_DECISION.clear()
-    try:
-        mesh = dist.make_mesh(8)
-        ft1, od1, _ = dist.render_frame_fused_sharded(
-            mesh, passes, w, h, geom_shard=False)
-        fb1 = dist.tiles_to_buffers_sharded(mesh, ft1, w, h)
-        ft2, od2, _ = dist.render_frame_fused_sharded(
-            mesh, passes, w, h, geom_shard=True)
-        fb2 = dist.tiles_to_buffers_sharded(mesh, ft2, w, h)
-    finally:
-        raster_sparse.FINE_MODE = saved
-        raster_sparse._FINE_DECISION.clear()
+    mesh = dist.make_mesh(8)
+    ft1, od1, _ = dist.render_frame_fused_sharded(
+        mesh, passes, w, h, tile_h=tile_h, geom_shard=False)
+    fb1 = dist.tiles_to_buffers_sharded(mesh, ft1, w, h, tile_h=tile_h)
+    ft2, od2, _ = dist.render_frame_fused_sharded(
+        mesh, passes, w, h, tile_h=tile_h, geom_shard=True)
+    fb2 = dist.tiles_to_buffers_sharded(mesh, ft2, w, h, tile_h=tile_h)
 
     assert (np.asarray(fb1.winner) == np.asarray(fb2.winner)).all()
     assert np.array_equal(np.asarray(fb1.depth), np.asarray(fb2.depth),
@@ -520,9 +499,9 @@ def test_fused_sharded_geom_shard_flag_bitwise(meshes, kernel):
                           equal_nan=True)
 
 
-@pytest.mark.parametrize("grid,kernel", [
-    ((2, 4), "fine"), ((2, 4), "coarse"), ((2, 2), "fine2")])
-def test_fused_sharded_2d_blocks_bitwise(meshes, grid, kernel):
+@pytest.mark.parametrize("grid,tile_h", [
+    ((2, 4), 16), ((2, 4), 32), ((2, 2), 32)])
+def test_fused_sharded_2d_blocks_bitwise(meshes, grid, tile_h):
     """render_frame_fused_sharded on a 2-D ('ty','tx') mesh — the
     production fused pipeline per screen BLOCK (binning clipped in both
     axes, 2-D kernel pixel origin, flat tile axis sharded over both mesh
@@ -533,32 +512,28 @@ def test_fused_sharded_2d_blocks_bitwise(meshes, grid, kernel):
         pytest.skip("not enough virtual devices")
     from tinyrenderder_tpu.ops import raster_sparse
 
-    w, h = 128 * n_cols, 16 * n_rows * 2      # 2 tile rows per band
+    w, h = 128 * n_cols, tile_h * n_rows * 2  # 2 tile rows per band
     view, proj = default_view()
     passes = _fused_passes(meshes, view, proj)
-    saved = raster_sparse.FINE_MODE
-    raster_sparse.FINE_MODE = kernel
-    raster_sparse._FINE_DECISION.clear()
-    try:
-        ft1, od1, _ = raster_sparse.render_frame_fused(passes, w, h)
-        fb1 = raster_sparse.tiles_to_buffers(ft1, w, h)
-        mesh = dist.make_mesh_grid(n_rows, n_cols)
-        ft2, od2, _ = dist.render_frame_fused_sharded(mesh, passes, w, h)
-        fb2 = dist.tiles_to_buffers_sharded(mesh, ft2, w, h)
-        od2_hw = dist.untile_one_sharded(mesh, od2, w, h)
-    finally:
-        raster_sparse.FINE_MODE = saved
-        raster_sparse._FINE_DECISION.clear()
+    ft1, od1, _ = raster_sparse.render_frame_fused(passes, w, h,
+                                                   tile_h=tile_h)
+    fb1 = raster_sparse.tiles_to_buffers(ft1, w, h, tile_h=tile_h)
+    mesh = dist.make_mesh_grid(n_rows, n_cols)
+    ft2, od2, _ = dist.render_frame_fused_sharded(mesh, passes, w, h,
+                                                  tile_h=tile_h)
+    fb2 = dist.tiles_to_buffers_sharded(mesh, ft2, w, h, tile_h=tile_h)
+    od2_hw = dist.untile_one_sharded(mesh, od2, w, h, tile_h=tile_h)
 
     assert (np.asarray(fb1.winner) == np.asarray(fb2.winner)).all()
     assert np.array_equal(np.asarray(fb1.depth), np.asarray(fb2.depth),
                           equal_nan=True)
     assert (np.asarray(fb1.color) == np.asarray(fb2.color)).all()
     # flat-tile comparison through the device-major block reorder
-    flat_od2 = dist.blocks_to_flat_tiles(od2, w, h, n_rows, n_cols, 16, 128)
+    flat_od2 = dist.blocks_to_flat_tiles(od2, w, h, n_rows, n_cols,
+                                         tile_h, 128)
     assert np.array_equal(flat_od2, np.asarray(od1), equal_nan=True)
-    od1_img = np.asarray(raster_sparse._untile_one_jit(
-        od1, w // 128, h // 16, 16, 128, True))
+    od1_img = np.asarray(raster_sparse.untile_plane(od1, w, h,
+                                                    tile_h=tile_h))
     assert np.array_equal(od1_img, np.asarray(od2_hw), equal_nan=True)
     # really distributed: one block shard per device
     shards = {s.device for s in ft2.color.addressable_shards}
@@ -622,7 +597,7 @@ def test_scene_backend_sharded_fused_route(meshes):
     """Scene.render(backend='sharded') with a tile-aligned height routes
     through the production fused path and matches the tiled backend
     bitwise (both run the same sparse/fine pipeline)."""
-    from tinyrenderder_tpu import math3d, scene as scene_mod
+    from tinyrenderder_tpu import math3d
     from tinyrenderder_tpu.camera import Camera
     from tinyrenderder_tpu.scene import Scene
 
@@ -641,13 +616,8 @@ def test_scene_backend_sharded_fused_route(meshes):
               name="plane")
         return s
 
-    saved = scene_mod.FORCE_TILES_LOOP
-    scene_mod.FORCE_TILES_LOOP = True     # tiled backend off-TPU
-    try:
-        a = build().render(backend="tiled", frustum_cull=False,
-                           collect_stats=False)
-    finally:
-        scene_mod.FORCE_TILES_LOOP = saved
+    a = build().render(backend="tiled", frustum_cull=False,
+                       collect_stats=False)
     b = build().render(backend="sharded", frustum_cull=False,
                        collect_stats=False)
     assert (np.asarray(a.color) == np.asarray(b.color)).all()
@@ -659,7 +629,7 @@ def test_geometry_tiles_bitwise_vs_fused(meshes):
     """PRODUCTION geometry parallelism (faces sharded through the
     binned/Pallas pipeline, pmin/psum merge on tiles) is bitwise-
     identical to the single-device fused frame, incl. the excluded-pass
-    output depth (round-3 verdict item #7)."""
+    output depth."""
     from tinyrenderder_tpu.ops import raster_sparse
 
     w, h = 128, 96
@@ -773,9 +743,9 @@ def test_sharded_backends_all_passes_culled(meshes):
 def test_fold_fused_totals_depth_sentinel_and_lifecycle():
     """Unit test of the sharded-fused caps folding: the depth-only
     sentinel (wt<0) must keep the seeded won-tile cap and leave the
-    one-time w refinement unconsumed (regression: _band_quantized_caps
-    quantized the sentinel to the 8-floor, so a color pass sharing the
-    key shaded 8 won tiles forever); a real measurement then refines w
+    one-time w refinement unconsumed (regression: quantizing the
+    sentinel to the 8-floor made a color pass sharing the key shade 8
+    won tiles forever); a real measurement then refines w
     once; overflow grows from the CURRENT caps."""
     key = ("unit-test-key",)
     n_band = 64
@@ -783,8 +753,8 @@ def test_fold_fused_totals_depth_sentinel_and_lifecycle():
         # seed: full-screen-probe caps (coarse: pair, active, won)
         dist._SHARD_FUSED_CAPS[key] = (4096, 48, 40)
         # fold 1: depth-only frame — pair/active shrink, w cap KEPT
-        over = dist._fold_fused_totals(key, "coarse",
-                                       np.array([500, 10, -1, -1]), n_band)
+        over = dist._fold_fused_totals(key, np.array([500, 10, -1]),
+                                       n_band)
         assert not over
         caps = dist._SHARD_FUSED_CAPS[key]
         assert caps[-1] == 40, "sentinel consumed the won-tile cap"
@@ -792,15 +762,15 @@ def test_fold_fused_totals_depth_sentinel_and_lifecycle():
         assert key in dist._SHARD_FUSED_REFINED
         assert key not in dist._SHARD_FUSED_W_REFINED
         # fold 2: a real won-tile measurement refines w exactly once
-        over = dist._fold_fused_totals(key, "coarse",
-                                       np.array([500, 10, 12, -1]), n_band)
+        over = dist._fold_fused_totals(key, np.array([500, 10, 12]),
+                                       n_band)
         assert not over
         caps = dist._SHARD_FUSED_CAPS[key]
         assert caps[-1] < 40
         assert key in dist._SHARD_FUSED_W_REFINED
         # fold 3: overflow grows from the current caps and reports it
         over = dist._fold_fused_totals(
-            key, "coarse", np.array([caps[0] + 1, 10, 12, -1]), n_band)
+            key, np.array([caps[0] + 1, 10, 12]), n_band)
         assert over
         assert dist._SHARD_FUSED_CAPS[key][0] > caps[0]
         assert dist._SHARD_FUSED_CAPS[key][-1] == caps[-1]   # w stable
@@ -821,7 +791,7 @@ def test_geometry_tiles_caps_grow_under_motion(meshes):
 
     w, h = 128, 128
     proj = np.asarray(math3d.perspective(60.0, 1.0, 0.1, 50.0))
-    # view 1: far away — few (strip, tri) pairs
+    # view 1: far away — few (tile, tri) pairs
     view_far = np.asarray(math3d.lookat((0, 0, 14.0), (0, 0, 0), (0, 1, 0)))
     # view 2: close — the head fills the frame, many more pairs
     view_near = np.asarray(math3d.lookat((0, 0, 1.6), (0, 0, 0), (0, 1, 0)))
@@ -857,43 +827,37 @@ def test_geometry_tiles_caps_grow_under_motion(meshes):
     assert (got == ref).all()
 
 
-@pytest.mark.parametrize("n_devices,kernel,interleave,direct", [
-    (8, "coarse", False, True), (8, "fine", False, False),
-    (8, "fine", True, True), (8, "fine2", True, False),
-    (2, "fine", False, True)])
-def test_fused_image_sharded_bitwise(meshes, n_devices, kernel,
+@pytest.mark.parametrize("n_devices,tile_h,interleave,direct", [
+    (8, 16, False, True), (8, 32, False, False),
+    (8, 16, True, True), (8, 32, True, False),
+    (2, 16, False, True)])
+def test_fused_image_sharded_bitwise(meshes, n_devices, tile_h,
                                      interleave, direct):
     """render_frame_fused_image_sharded (single-pass direct-to-image
     under row-band shard_map) must be BITWISE identical to the
     single-device image path — contiguous and interleaved bands, both
-    placement variants, every kernel."""
+    placement variants, both tile heights."""
     if len(jax.devices()) < n_devices:
         pytest.skip("not enough virtual devices")
     from tinyrenderder_tpu.ops import raster_sparse
 
-    w, h = 128, 16 * 8
+    w, h = 128, tile_h * 8
     view, proj = default_view()
     p = make_pass(meshes["head"], PhongShader(KEY, FILL, RIM), view, proj)
     import jax.numpy as jnp
     passes = [({k: jnp.asarray(v) for k, v in p.attrs.items()},
                p.shader, dict(p.uniforms), False)]
-    saved = raster_sparse.FINE_MODE
-    raster_sparse.FINE_MODE = kernel
-    raster_sparse._FINE_DECISION.clear()
-    try:
-        ref, _ = raster_sparse.render_frame_fused_image(
-            passes, w, h, direct=direct)
-        mesh = dist.make_mesh(n_devices)
-        img, ovf = dist.render_frame_fused_image_sharded(
-            mesh, passes, w, h, interleave=interleave, direct=direct)
-        # really distributed: one band shard per device (pre-reorder
-        # the rows live band-sharded; the deinterleave reshuffle only
-        # runs for interleave=True)
-        np.testing.assert_array_equal(np.asarray(img), np.asarray(ref))
-        assert not bool(np.asarray(ovf).any())
-    finally:
-        raster_sparse.FINE_MODE = saved
-        raster_sparse._FINE_DECISION.clear()
+    ref, _ = raster_sparse.render_frame_fused_image(
+        passes, w, h, tile_h=tile_h, direct=direct)
+    mesh = dist.make_mesh(n_devices)
+    img, ovf = dist.render_frame_fused_image_sharded(
+        mesh, passes, w, h, tile_h=tile_h, interleave=interleave,
+        direct=direct)
+    # really distributed: one band shard per device (pre-reorder
+    # the rows live band-sharded; the deinterleave reshuffle only
+    # runs for interleave=True)
+    np.testing.assert_array_equal(np.asarray(img), np.asarray(ref))
+    assert not bool(np.asarray(ovf).any())
 
 
 def test_fused_image_sharded_async_capacity(meshes):
@@ -910,36 +874,29 @@ def test_fused_image_sharded_async_capacity(meshes):
     import jax.numpy as jnp
     passes = [({k: jnp.asarray(v) for k, v in p.attrs.items()},
                p.shader, dict(p.uniforms), False)]
-    saved = raster_sparse.FINE_MODE
-    raster_sparse.FINE_MODE = "coarse"
-    raster_sparse._FINE_DECISION.clear()
-    try:
-        ref, _ = raster_sparse.render_frame_fused_image(passes, w, h)
-        mesh = dist.make_mesh(2)
-        f = passes[0][0]["position"].shape[0]
-        key = (f, 1, 8, 16, 128, 2, 1, "coarse", "fused-sharded", False)
-        dist._SHARD_FUSED_CAPS[key] = (8, 8, 8)
-        dist._SHARD_FUSED_PENDING.pop(key, None)
-        dist._SHARD_FUSED_REFINED.discard(key)
+    ref, _ = raster_sparse.render_frame_fused_image(passes, w, h)
+    mesh = dist.make_mesh(2)
+    f = passes[0][0]["position"].shape[0]
+    key = (f, 1, 8, 16, 128, 2, 1, "fused-sharded", False)
+    dist._SHARD_FUSED_CAPS[key] = (8, 8, 8)
+    dist._SHARD_FUSED_PENDING.pop(key, None)
+    dist._SHARD_FUSED_REFINED.discard(key)
+    img, ovf = dist.render_frame_fused_image_sharded(
+        mesh, passes, w, h, strict_capacity=False)
+    assert bool(np.asarray(ovf).any())
+    np.asarray(img)                          # land the staged totals
+    for _ in range(4):
         img, ovf = dist.render_frame_fused_image_sharded(
             mesh, passes, w, h, strict_capacity=False)
-        assert bool(np.asarray(ovf).any())
-        np.asarray(img)                      # land the staged totals
-        for _ in range(4):
-            img, ovf = dist.render_frame_fused_image_sharded(
-                mesh, passes, w, h, strict_capacity=False)
-            if not bool(np.asarray(ovf).any()):
-                break
-            np.asarray(img)
-        assert not bool(np.asarray(ovf).any())
-        np.testing.assert_array_equal(np.asarray(img), np.asarray(ref))
-    finally:
-        raster_sparse.FINE_MODE = saved
-        raster_sparse._FINE_DECISION.clear()
+        if not bool(np.asarray(ovf).any()):
+            break
+        np.asarray(img)
+    assert not bool(np.asarray(ovf).any())
+    np.testing.assert_array_equal(np.asarray(img), np.asarray(ref))
 
 
 # ---------------------------------------------------------------------------
-# Measured-load band splitting (round-4 verdict #6)
+# Measured-load band splitting
 # ---------------------------------------------------------------------------
 
 def test_balance_bands_optimal_and_capped():
@@ -999,46 +956,41 @@ def meshes_local():
     return standard_meshes()
 
 
-@pytest.mark.parametrize("kernel", ["coarse", "fine", "fine2"])
-def test_fused_sharded_measured_bands_bitwise(meshes, kernel):
+@pytest.mark.parametrize("tile_h", [16, 32])
+def test_fused_sharded_measured_bands_bitwise(meshes, tile_h):
     """Measured-load bands (unequal contiguous row counts under one
     static band shape) must stay BITWISE identical to the single-device
-    fused frame for every kernel, including the excluded-pass output
-    depth and the (H, W) untiles."""
+    fused frame at both tile heights, including the excluded-pass
+    output depth and the (H, W) untiles."""
     if len(jax.devices()) < 8:
         pytest.skip("not enough virtual devices")
     from tinyrenderder_tpu.ops import raster_sparse
 
-    w, h = 128, 16 * 16             # 16 tile rows over 8 devices
+    w, h = 128, tile_h * 16         # 16 tile rows over 8 devices
     view, proj = default_view()
     passes = _fused_passes(meshes, view, proj)
-    costs = dist.measure_tile_row_costs(passes, w, h)
+    costs = dist.measure_tile_row_costs(passes, w, h, tile_h=tile_h)
     bands = dist.balance_bands(costs, 8)
     # the scene concentrates coverage: the measured split must NOT be
     # the even split (otherwise this test exercises nothing new)
     assert any(r != 2 for _, r in bands), bands
-    saved = raster_sparse.FINE_MODE
-    raster_sparse.FINE_MODE = kernel
-    raster_sparse._FINE_DECISION.clear()
-    try:
-        ft1, od1, _ = raster_sparse.render_frame_fused(passes, w, h)
-        fb1 = raster_sparse.tiles_to_buffers(ft1, w, h)
-        mesh = dist.make_mesh(8)
-        ft2, od2, _ = dist.render_frame_fused_sharded(
-            mesh, passes, w, h, bands=bands)
-        fb2 = dist.tiles_to_buffers_sharded(mesh, ft2, w, h, bands=bands)
-        od2_hw = dist.untile_one_sharded(mesh, od2, w, h, bands=bands)
-        od1_hw = raster_sparse._untile_one_jit(
-            od1, w // 128, h // 16, 16, 128,
-            jax.default_backend() != "tpu")[:h, :w]
-        # image path under the same bands (single color pass)
-        one = passes[:1]
-        img1, _ = raster_sparse.render_frame_fused_image(one, w, h)
-        img2, _ = dist.render_frame_fused_image_sharded(
-            mesh, one, w, h, bands=bands)
-    finally:
-        raster_sparse.FINE_MODE = saved
-        raster_sparse._FINE_DECISION.clear()
+    ft1, od1, _ = raster_sparse.render_frame_fused(passes, w, h,
+                                                   tile_h=tile_h)
+    fb1 = raster_sparse.tiles_to_buffers(ft1, w, h, tile_h=tile_h)
+    mesh = dist.make_mesh(8)
+    ft2, od2, _ = dist.render_frame_fused_sharded(
+        mesh, passes, w, h, tile_h=tile_h, bands=bands)
+    fb2 = dist.tiles_to_buffers_sharded(mesh, ft2, w, h, tile_h=tile_h,
+                                        bands=bands)
+    od2_hw = dist.untile_one_sharded(mesh, od2, w, h, tile_h=tile_h,
+                                     bands=bands)
+    od1_hw = raster_sparse.untile_plane(od1, w, h, tile_h=tile_h)
+    # image path under the same bands (single color pass)
+    one = passes[:1]
+    img1, _ = raster_sparse.render_frame_fused_image(one, w, h,
+                                                     tile_h=tile_h)
+    img2, _ = dist.render_frame_fused_image_sharded(
+        mesh, one, w, h, tile_h=tile_h, bands=bands)
 
     assert (np.asarray(fb1.winner) == np.asarray(fb2.winner)).all()
     assert np.array_equal(np.asarray(fb1.depth), np.asarray(fb2.depth),
@@ -1066,7 +1018,7 @@ def test_scene_backend_sharded_measured_route(meshes):
     measured-band fused path (unequal contiguous bands) and matches the
     tiled backend bitwise; the band partition is cached per scene
     state and invalidated by camera motion."""
-    from tinyrenderder_tpu import math3d, scene as scene_mod
+    from tinyrenderder_tpu import math3d
     from tinyrenderder_tpu.camera import Camera
     from tinyrenderder_tpu.scene import Scene
 
@@ -1090,13 +1042,8 @@ def test_scene_backend_sharded_measured_route(meshes):
               name="plane")
         return s
 
-    saved = scene_mod.FORCE_TILES_LOOP
-    scene_mod.FORCE_TILES_LOOP = True     # tiled backend off-TPU
-    try:
-        a = build().render(backend="tiled", frustum_cull=False,
-                           collect_stats=False)
-    finally:
-        scene_mod.FORCE_TILES_LOOP = saved
+    a = build().render(backend="tiled", frustum_cull=False,
+                       collect_stats=False)
     sc = build()
     b = sc.render(backend="sharded-measured", frustum_cull=False,
                   collect_stats=False)
@@ -1115,17 +1062,10 @@ def test_scene_backend_sharded_measured_route(meshes):
                   collect_stats=False)
     assert cache["refs"] is not refs0 or cache["pending"] is not None
     # frames stay bitwise-correct regardless of which partition served
-    scene_mod2 = __import__("tinyrenderder_tpu.scene",
-                            fromlist=["scene"])
-    saved2 = scene_mod2.FORCE_TILES_LOOP
-    scene_mod2.FORCE_TILES_LOOP = True
-    try:
-        sc2 = build()
-        sc2.camera.set_eye(math3d.vec3(0.2, 0.5, 3))
-        ref2 = sc2.render(backend="tiled", frustum_cull=False,
-                          collect_stats=False)
-    finally:
-        scene_mod2.FORCE_TILES_LOOP = saved2
+    sc2 = build()
+    sc2.camera.set_eye(math3d.vec3(0.2, 0.5, 3))
+    ref2 = sc2.render(backend="tiled", frustum_cull=False,
+                      collect_stats=False)
     assert (np.asarray(c.color) == np.asarray(ref2.color)).all()
     # the pending async measurement resolves on a later frame (loop:
     # the D2H land time is host-load dependent on the 1-vCPU box)
@@ -1143,7 +1083,7 @@ def test_scene_backend_sharded_auto_measured_on_nondivisible(meshes):
     """backend='sharded' on a tile-aligned frame whose rows do NOT
     divide by the device count must auto-route through measured bands
     (fused path) instead of the non-fused fallback, bitwise vs tiled."""
-    from tinyrenderder_tpu import math3d, scene as scene_mod
+    from tinyrenderder_tpu import math3d
     from tinyrenderder_tpu.camera import Camera
     from tinyrenderder_tpu.scene import Scene
 
@@ -1171,13 +1111,8 @@ def test_scene_backend_sharded_auto_measured_on_nondivisible(meshes):
         return orig(*a, **kw)
 
     saved_fn = dist.render_frame_fused_sharded
-    saved = scene_mod.FORCE_TILES_LOOP
-    scene_mod.FORCE_TILES_LOOP = True
-    try:
-        a = build().render(backend="tiled", frustum_cull=False,
-                           collect_stats=False)
-    finally:
-        scene_mod.FORCE_TILES_LOOP = saved
+    a = build().render(backend="tiled", frustum_cull=False,
+                       collect_stats=False)
     dist.render_frame_fused_sharded = spy
     try:
         b = build().render(backend="sharded", frustum_cull=False,

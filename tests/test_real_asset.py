@@ -1,4 +1,4 @@
-"""Reference-scale disk-asset pipeline test (VERDICT item 9).
+"""Reference-scale disk-asset pipeline test.
 
 Generates a 27360-face head OBJ + MTL + three real TGA texture maps on
 disk (african_head is ~25k faces, main.cpp:478), loads it back through
@@ -7,7 +7,7 @@ Material), renders the CLI default scene via the argv[1] model-override
 path (main.cpp:478) on xla AND tiled backends, and pins the output
 against checked-in goldens.  Regenerate goldens (only after intentional
 semantics changes) with:
-    JAX_PLATFORM_NAME=cpu python scripts/gen_real_asset.py <dir> --golden
+    JAX_PLATFORMS=cpu python scripts/gen_real_asset.py <dir> --golden
 """
 
 import os

@@ -90,7 +90,7 @@ def test_stats_against_oracle():
     assert (r_o.stats.min_x, r_o.stats.min_y, r_o.stats.max_x, r_o.stats.max_y) == \
            (r_x.stats.min_x, r_x.stats.min_y, r_x.stats.max_x, r_x.stats.max_y)
     # the scan backend's counters are EXACT (overdraw-inclusive z-pass
-    # events via raster.pass_events_xla — round-3 verdict item #4)
+    # events via raster.pass_events_xla)
     assert r_x.stats.fragments_exact
     assert r_x.stats.fragments_drawn == r_o.stats.fragments_drawn
     assert r_x.stats.fragments_drawn >= np.isfinite(r_x.full_depth).sum()
@@ -288,13 +288,11 @@ def single_pass_scene(width=128, height=128):
 
 def test_render_image_routes_single_pass_through_image_path(monkeypatch):
     """Scene.render_image on a single-color-pass frame must run the
-    direct-to-image fused program (the round-4 lever, wired round 5)
+    direct-to-image fused program
     and reproduce the general tiled path's colors bitwise."""
-    from tinyrenderder_tpu import scene as scene_mod
     from tinyrenderder_tpu.ops import raster_sparse
 
     sc = single_pass_scene()
-    monkeypatch.setattr(scene_mod, "FORCE_TILES_LOOP", True)
     calls = []
     orig = raster_sparse.render_frame_fused_image
 
@@ -312,11 +310,9 @@ def test_render_image_routes_single_pass_through_image_path(monkeypatch):
 def test_render_image_multipass_falls_back(monkeypatch):
     """Multi-pass scenes (and any shape the image program can't take)
     fall back to the full render; the caller still gets the frame."""
-    from tinyrenderder_tpu import scene as scene_mod
     from tinyrenderder_tpu.ops import raster_sparse
 
     sc = small_scene()
-    monkeypatch.setattr(scene_mod, "FORCE_TILES_LOOP", True)
 
     def boom(*a, **kw):
         raise AssertionError("image path must not run on 3-pass scenes")
@@ -332,7 +328,6 @@ def test_render_image_sharded_route(monkeypatch):
     bitwise-identical to the single-device tiled frame."""
     import jax
 
-    from tinyrenderder_tpu import scene as scene_mod
     from tinyrenderder_tpu.parallel import dist
 
     if len(jax.devices()) < 2:
@@ -349,7 +344,6 @@ def test_render_image_sharded_route(monkeypatch):
     monkeypatch.setattr(dist, "render_frame_fused_image_sharded", spy)
     img = sc.render_image(backend="sharded")
     assert len(calls) >= 1, "sharded image route not taken"
-    monkeypatch.setattr(scene_mod, "FORCE_TILES_LOOP", True)
     ref = sc.render(backend="tiled", collect_stats=False).color
     assert np.array_equal(img, np.asarray(ref))
 
@@ -380,7 +374,6 @@ def test_render_image_sharded_nondivisible_bands(monkeypatch):
     vs the tiled image."""
     import jax
 
-    from tinyrenderder_tpu import scene as scene_mod
     from tinyrenderder_tpu.parallel import dist
 
     if len(jax.devices()) < 2:
@@ -397,46 +390,5 @@ def test_render_image_sharded_nondivisible_bands(monkeypatch):
     monkeypatch.setattr(dist, "render_frame_fused_image_sharded", spy)
     img = sc.render_image(backend="sharded")
     assert seen.get("bands") is not None, "bands route not taken"
-    monkeypatch.setattr(scene_mod, "FORCE_TILES_LOOP", True)
     ref = sc.render(backend="tiled", collect_stats=False).color
     assert np.array_equal(img, np.asarray(ref))
-
-
-def test_pick_tile_h_routing_bitwise(monkeypatch):
-    """The resolution-dispatched tile height (32 on large frames) must
-    be bitwise-identical to the 16-row tiling on the scene driver's
-    tiled path — incl. the multi-pass excluded-depth flow — and on the
-    image route.  The threshold is lowered so the 32-row program runs
-    at test sizes."""
-    from tinyrenderder_tpu import scene as scene_mod
-    from tinyrenderder_tpu.ops import raster_sparse
-
-    monkeypatch.setattr(scene_mod, "FORCE_TILES_LOOP", True)
-    sc3 = small_scene(width=128, height=96)       # 3 passes, eye excluded
-    ref3 = sc3.render(backend="tiled", collect_stats=False)
-    sc1 = single_pass_scene(width=128, height=96)
-    ref_img = sc1.render_image(backend="tiled")
-
-    ref3s = small_scene(width=128, height=96).render(
-        backend="tiled", collect_stats=True)     # per-pass dispatch loop
-
-    monkeypatch.setattr(raster_sparse, "TILE_H_LARGE_PIXELS", 1)
-    assert raster_sparse.pick_tile_h(128, 96) == 32
-    got3 = small_scene(width=128, height=96).render(
-        backend="tiled", collect_stats=False)
-    assert np.array_equal(ref3.color, got3.color)
-    assert np.array_equal(np.asarray(ref3.full_depth),
-                          np.asarray(got3.full_depth), equal_nan=True)
-    assert np.array_equal(np.asarray(ref3.depth),
-                          np.asarray(got3.depth), equal_nan=True)
-    # the per-pass dispatch loop (collect_stats=True — the default
-    # scene.render route) must also run th=32 bitwise, with stats
-    got3s = small_scene(width=128, height=96).render(
-        backend="tiled", collect_stats=True)
-    assert np.array_equal(ref3s.color, got3s.color)
-    assert np.array_equal(np.asarray(ref3s.full_depth),
-                          np.asarray(got3s.full_depth), equal_nan=True)
-    assert ref3s.stats.fragments_drawn == got3s.stats.fragments_drawn
-    got_img = single_pass_scene(width=128, height=96).render_image(
-        backend="tiled")
-    assert np.array_equal(ref_img, got_img)

@@ -105,18 +105,13 @@ def test_shadowed_scene_swaps_shaders():
 def test_fused_shadow_path_matches_loop():
     """The single-dispatch two-pass fast path (collect_stats=False,
     tiled) must produce the same frame as the two-render path."""
-    from tinyrenderder_tpu import scene as scene_mod
     scene = _blocker_scene()
     settings = shadows.ShadowSettings(size=128)
-    # reference path through the same sparse kernels (FORCE hook), so
-    # the comparison is bitwise rather than cross-backend ±1 ulp
-    scene_mod.FORCE_TILES_LOOP = True
-    try:
-        r_ref, sm_ref = shadows.render_with_shadows(
-            scene, KEY, settings, backend="tiled", frustum_cull=False,
-            collect_stats=True, transfer=True, strict_capacity=True)
-    finally:
-        scene_mod.FORCE_TILES_LOOP = False
+    # reference: the per-pass loop through the same sparse pipeline,
+    # so the comparison is bitwise
+    r_ref, sm_ref = shadows.render_with_shadows(
+        scene, KEY, settings, backend="tiled", frustum_cull=False,
+        collect_stats=True, transfer=True, strict_capacity=True)
     r_fus, sm_fus = shadows.render_with_shadows(
         scene, KEY, settings, backend="tiled", frustum_cull=False,
         collect_stats=False, transfer=True, strict_capacity=True)

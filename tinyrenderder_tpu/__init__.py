@@ -1,16 +1,16 @@
-"""tinyrenderder_tpu — a TPU-native software rasterization engine.
+"""tinyrenderder_tpu — a software rasterization engine on JAX for NVIDIA GPUs.
 
 A from-scratch re-design of the capabilities of the reference CPU renderer
 (AnnaUshnova/tinyrenderder: a tinyrenderer-style C++17 rasterizer) as an
-idiomatic JAX / XLA / Pallas framework:
+JAX / XLA / Pallas framework:
 
   * meshes are SoA pytrees of arrays (``models.mesh.Mesh``)
   * vertex transforms are batched elementwise math over all vertices
   * the per-pixel ``rasterize()`` loop (reference ``our_gl.cpp:89-201``)
     becomes a two-phase depth-resolve + shade pipeline:
-      - phase A: coverage + depth scatter-min with deterministic
-        first-submission-wins tie-break (Pallas tile kernel on TPU,
-        pure-XLA fallback everywhere)
+      - phase A: coverage + depth resolve with deterministic
+        first-submission-wins tie-break (a Pallas/Triton tile kernel on
+        the GPU, interpreted on the CPU for tests)
       - phase B: per-pixel shading of the winning triangle (vmapped
         pure shader functions, texture sampling as gathers)
   * multi-chip scaling is framebuffer tile-sharding over a
@@ -30,3 +30,8 @@ Public API parity map (reference file -> module):
 __version__ = "0.1.0"
 
 from tinyrenderder_tpu import math3d  # noqa: F401
+from tinyrenderder_tpu.ops import device as _device
+
+# bitwise oracle parity needs IEEE f32 division from XLA:GPU; the flag
+# must be in place before JAX starts its CUDA backend
+_device.require_exact_div()

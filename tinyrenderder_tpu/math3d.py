@@ -1,6 +1,6 @@
 """Host-side 3D math: vectors, matrices, transforms, culling primitives.
 
-TPU-native equivalent of the reference's ``geometry.h`` (vec<n>/mat<R,C>,
+The equivalent of the reference's ``geometry.h`` (vec<n>/mat<R,C>,
 Plane, AABB), the transform builders in ``our_gl.cpp:25-69`` /
 ``camera.h:192-218``, the model-matrix constructors of ``main.cpp:365-420``
 and the frustum extraction of ``our_gl.cpp:212-280``.

@@ -48,7 +48,7 @@ import numpy as np
 from tinyrenderder_tpu.models.collada import _triangulate_rows
 from tinyrenderder_tpu.models.mesh import (Material, Mesh, SubMesh,
                                            dedup_rows_stable)
-from tinyrenderder_tpu.models.obj import (_try_read_texture,
+from tinyrenderder_tpu.models.obj import (_pil_image, _try_read_texture,
                                           load_material_textures)
 
 log = logging.getLogger("tinyrenderder_tpu.fbx")
@@ -489,8 +489,8 @@ _TEX_SLOT = {
 
 
 def _decode_embedded(raw: bytes) -> np.ndarray | None:
+    Image = _pil_image()
     try:
-        from PIL import Image
         with Image.open(io.BytesIO(raw)) as im:
             if im.mode not in ("RGB", "RGBA", "L"):
                 im = im.convert("RGBA" if "A" in im.mode else "RGB")

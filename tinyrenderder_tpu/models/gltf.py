@@ -39,7 +39,8 @@ import urllib.parse
 import numpy as np
 
 from tinyrenderder_tpu.models.mesh import Material, Mesh, SubMesh
-from tinyrenderder_tpu.models.obj import load_material_textures
+from tinyrenderder_tpu.models.obj import (_pil_image,
+                                          load_material_textures)
 
 log = logging.getLogger("tinyrenderder_tpu.gltf")
 
@@ -229,12 +230,12 @@ def _triangulate(idx: np.ndarray, mode: int) -> np.ndarray:
 
 def _decode_image(doc: _Doc, image_index: int) -> np.ndarray | None:
     img = doc.j["images"][image_index]
+    Image = _pil_image()
     try:
         if "uri" in img:
             raw = _decode_uri(img["uri"], doc.directory)
         else:
             raw, _ = doc.view_bytes(img["bufferView"])
-        from PIL import Image
         with Image.open(io.BytesIO(raw)) as im:
             if im.mode not in ("RGB", "RGBA", "L"):
                 im = im.convert("RGBA" if "A" in im.mode else "RGB")

@@ -37,6 +37,17 @@ log = logging.getLogger("tinyrenderder_tpu.obj")
 __all__ = ["load_obj", "load_mtl", "load_material_textures"]
 
 
+def _pil_image():
+    """PIL.Image, for the embedded PNG/JPEG textures of glTF and FBX
+    files (the only images the renderer does not decode itself)."""
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise ImportError("decoding embedded PNG/JPEG textures needs "
+                          "Pillow (pip install pillow)") from e
+    return Image
+
+
 def _try_read_texture(path: str) -> np.ndarray | None:
     """Read a texture via the TGA codec; returns RGB[A] uint8 or None.
 

@@ -154,7 +154,7 @@ def composite(color, ao_intensity_u8, xp):
 
     Computed in INTEGER math ((c*a) // 255), which makes the numpy and
     device paths BITWISE-IDENTICAL (the previous formulation used f64
-    on host but f32 on device — TPU has no fast f64 — and the two could
+    on host but f32 on device — f64 is slow on the device — and the two could
     disagree by 1 LSB, falsifying postprocess_device's byte-identity
     claim).  Versus the reference's two-step f64 rounding
     (main.cpp:774: ao/255.0 then *c) the integer floor differs on

@@ -20,8 +20,8 @@ All discontinuous decisions go through ops.semantics, so output is
 bit-comparable with the float32 CPU oracle.
 
 This module is the always-available XLA path (used for tests on CPU meshes
-and as the fallback); ops.raster_tiled adds the binned Pallas TPU kernel
-with the same semantics.
+and as the fallback); ops.raster_tiled adds binning, and ops.raster_pallas
+the Pallas resolve kernel, with the same semantics.
 """
 
 from __future__ import annotations

@@ -45,7 +45,7 @@ def apply_mat4(m, v, xp):
     return xp.stack(rows, axis=-1)
 
 
-def barycentric(ax, ay, bx, by, cx, cy, px, py, xp):
+def barycentric(ax, ay, bx, by, cx, cy, px, py, xp, div=None):
     """Affine barycentric coordinates of P in triangle (A, B, C).
 
     Exact formula order of our_gl.cpp:77-86:
@@ -55,6 +55,8 @@ def barycentric(ax, ay, bx, by, cx, cy, px, py, xp):
       else (1 - (u.x+u.y)/u.z, u.y/u.z, u.x/u.z)
 
     All args broadcastable; returns (b0, b1, b2, degenerate_mask).
+    ``div(a, b)`` replaces ``a / b`` where the array namespace's own
+    division is not IEEE (the GPU kernel passes ``div.rn.f32``).
     """
     s0x = cx - ax
     s0y = bx - ax
@@ -68,9 +70,14 @@ def barycentric(ax, ay, bx, by, cx, cy, px, py, xp):
     uz = s0x * s1y - s0y * s1x
     degen = xp.abs(uz) < DEGEN_EPS
     safe_uz = xp.where(degen, xp.ones_like(uz), uz)
-    b0 = 1.0 - (ux + uy) / safe_uz
-    b1 = uy / safe_uz
-    b2 = ux / safe_uz
+    if div is None:
+        b0 = 1.0 - (ux + uy) / safe_uz
+        b1 = uy / safe_uz
+        b2 = ux / safe_uz
+    else:
+        b0 = 1.0 - div(ux + uy, safe_uz)
+        b1 = div(uy, safe_uz)
+        b2 = div(ux, safe_uz)
     neg1 = xp.asarray(-1.0, dtype=b0.dtype)
     pos1 = xp.asarray(1.0, dtype=b0.dtype)
     b0 = xp.where(degen, neg1, b0)

@@ -3,7 +3,7 @@
 This is the correctness anchor for the whole framework — an independent,
 serial re-implementation of the reference rasterizer's control flow
 (our_gl.cpp:89-201, detailed in SURVEY.md §3.3), against which the
-parallel TPU engine is validated pixel-exactly:
+parallel engine is validated pixel-exactly:
 
   * triangles processed one at a time in submission order
   * per-triangle whole-triangle rejects (w <= 1e-12 / all-z-outside /
@@ -51,18 +51,24 @@ class OracleFrame:
     color: np.ndarray                # (H, W, 3) uint8 RGB
     zbuffer: np.ndarray              # (H, W) dtype, +inf where empty
     stats: RenderStats = field(default_factory=RenderStats)
+    #: (H, W) int32 id of the triangle that last passed the z-test
+    #: (ids count across passes in submission order), -1 where empty
+    winner: np.ndarray | None = None
 
 
 def _new_frame(width: int, height: int, dtype) -> OracleFrame:
     return OracleFrame(
         color=np.zeros((height, width, 3), dtype=np.uint8),
         zbuffer=np.full((height, width), np.inf, dtype=dtype),
+        winner=np.full((height, width), -1, dtype=np.int32),
     )
 
 
 def render_pass(frame: OracleFrame, p: OraclePass, width: int, height: int,
-                dtype=np.float64) -> None:
-    """Rasterize every face of one pass into the frame, in order."""
+                dtype=np.float64, winner_offset: int = 0) -> None:
+    """Rasterize every face of one pass into the frame, in order.
+    ``winner_offset``: id of this pass's first triangle in the frame's
+    winner map."""
     xp = np
     attrs = {k: np.asarray(v, dtype=dtype) for k, v in p.attrs.items()}
     uniforms = dict(p.uniforms)
@@ -78,6 +84,8 @@ def render_pass(frame: OracleFrame, p: OraclePass, width: int, height: int,
 
     zbuf = frame.zbuffer
     color = frame.color
+    if frame.winner is None:
+        frame.winner = np.full(zbuf.shape, -1, dtype=np.int32)
 
     for f in range(nfaces):
         if not bool(setup["valid"][f]):
@@ -109,6 +117,8 @@ def render_pass(frame: OracleFrame, p: OraclePass, width: int, height: int,
 
         midx = np.nonzero(mask)
         zwin = z[midx]
+        frame.winner[min_y:max_y + 1, min_x:max_x + 1][midx] = (
+            f + winner_offset)
         if not p.shader.writes_color:    # depth-only pass: skip shading
             tile[midx] = zwin
             st.fragments_drawn += int(mask.sum())
@@ -139,6 +149,9 @@ def render_passes(passes: list[OraclePass], width: int, height: int,
     """Render a list of passes into one frame (fresh unless given)."""
     if frame is None:
         frame = _new_frame(width, height, dtype)
+    offset = 0
     for p in passes:
-        render_pass(frame, p, width, height, dtype=dtype)
+        render_pass(frame, p, width, height, dtype=dtype,
+                    winner_offset=offset)
+        offset += int(np.asarray(p.attrs["position"]).shape[0])
     return frame

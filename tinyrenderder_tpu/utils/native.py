@@ -1,7 +1,7 @@
 """ctypes bindings to the native C++ runtime helpers (native/*.cpp).
 
 The reference's host runtime is entirely C++ (codec, loader); the
-TPU-native framework keeps the compute path in XLA/Pallas and implements
+JAX framework keeps the compute path in XLA/Pallas and implements
 the host-side hot loops (TGA RLE codec, OBJ tokenizer) in C++ too, built
 as ``native/libtinyrenderder_native.so`` via ``make -C native``.
 

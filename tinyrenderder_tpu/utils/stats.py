@@ -11,7 +11,7 @@ backend now reports this exactly: the CPU oracle counts serially, the
 tiled backend reads the kernels' event planes, and the xla/sharded
 backends replay the passes through the events scan
 (raster.pass_events_xla).  ``fragments_exact`` stays as an API field
-(always True from the built-in backends, round-3 verdict item #4).
+(always True from the built-in backends).
 """
 
 from __future__ import annotations
